@@ -8,8 +8,8 @@ regularized saddle-point system whose size grows with the device count
 (constant rows per device = weak scaling), and records per-iteration time,
 work-model nnz/s, and efficiency vs the 1-device point.
 
-On real TPU hardware the mesh devices are chips and the numbers are true
-scaling; with XLA's virtual CPU devices (--force-cpu-devices N, the only
+On GPUs the mesh devices are cards and the numbers are true scaling;
+with XLA's virtual CPU devices (--force-cpu-devices N, the only
 multi-device option in this environment) all shards share one host's cores,
 so the table validates the harness, the collectives, and the O(rows/ndev)
 memory layout rather than genuine parallel speedup — the artifact states
@@ -20,7 +20,8 @@ Usage:
         [--devices 1,2,4,8] [--iters 5] [--force-cpu-devices 8]
         [--big-rows 10000000]   # optional 10M-row single-point demo
 
-Writes benchmarks/SCALING_REPORT.json and prints one JSON line per point.
+Writes reports/SCALING_REPORT.json (git-ignored) and prints one JSON line
+per point.
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ def _run_point(ndev: int, rows: int, iters: int, dtype):
     from cpkrylov_tpu.precond.cp import make_preconditioner
     from cpkrylov_tpu.utils import fixtures
     from cpkrylov_tpu.utils.profiling import work_model
-    from cpkrylov_tpu.utils.timing import sync
 
     n = rows
     m = rows // 4
@@ -85,7 +85,7 @@ def _run_point(ndev: int, rows: int, iters: int, dtype):
         res, x1, x2 = dist_solve(mesh, "cpminres", sysm.b, sysm.A, sysm.B,
                                  sysm.C, sysm.G, opts=opts, M=M,
                                  dtype=dtype)
-        sync(x1)
+        jax.block_until_ready(x1)
         return res
 
     t0 = time.perf_counter()
@@ -163,7 +163,8 @@ def main():
     ap.add_argument("--big-rows", type=int, default=0,
                     help="also run one point at this many rows on the "
                          "largest device count (10M-row demo)")
-    ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--f32", action="store_true",
+                    help="run in f32 (default f64, the GPU's main path)")
     args = ap.parse_args()
 
     import os
@@ -177,11 +178,10 @@ def main():
 
     if args.force_cpu_devices:
         jax.config.update("jax_platforms", "cpu")
-    # Virtual-CPU validation runs in f64: f32 recurrences break down
-    # (indefiniteness guard) when rtol=0 forces iterations past the f32
-    # floor, truncating the measured iteration count.  Real TPU runs use
-    # f32 unless --f64 is given.
-    use_f64 = args.f64 or bool(args.force_cpu_devices)
+    # f32 recurrences break down (indefiniteness guard) when rtol=0 forces
+    # iterations past the f32 floor, truncating the measured iteration
+    # count, so virtual-CPU validation always runs in f64.
+    use_f64 = not args.f32 or bool(args.force_cpu_devices)
     dtype = np.float64 if use_f64 else np.float32
     if use_f64:
         jax.config.update("jax_enable_x64", True)
@@ -192,7 +192,9 @@ def main():
     mode = ("virtual-cpu" if args.force_cpu_devices
             else str(jax.devices()[0].device_kind))
 
-    out = pathlib.Path(__file__).parent / "SCALING_REPORT.json"
+    out = pathlib.Path(__file__).resolve().parent.parent / "reports"
+    out.mkdir(exist_ok=True)
+    out = out / "SCALING_REPORT.json"
     report = {
         "mode": mode,
         "note": ("virtual CPU devices share one host's cores: this table "

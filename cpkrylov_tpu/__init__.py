@@ -1,6 +1,6 @@
-"""cpkrylov_tpu — TPU-native constraint-preconditioned Krylov solvers.
+"""cpkrylov_tpu — constraint-preconditioned Krylov solvers in JAX.
 
-A from-scratch JAX/XLA/Pallas framework for regularized saddle-point systems
+A from-scratch JAX/XLA framework for regularized saddle-point systems
 
     [ A  B' ] [x1]   [b1]
     [ B  -C ] [x2] = [b2]
@@ -8,7 +8,7 @@ A from-scratch JAX/XLA/Pallas framework for regularized saddle-point systems
 implementing the constraint-preconditioned Krylov family (CPCG,
 CP-CG-Lanczos, CPMINRES, CPSYMMLQ, CPGMRES(l), CPDQGMRES) with the same
 capabilities as the MATLAB reference ``cpkrylov`` (di Serafino & Orban,
-SISC 2021) but a TPU-first architecture: sparse containers as pytrees,
+SISC 2021) on accelerators: sparse containers as pytrees,
 SpMV/trisolve device kernels, a host-factorized LDL^T constraint
 preconditioner with Gould-Hribar-Nocedal residual update and iterative
 refinement threaded as explicit functional state, and solvers as
@@ -23,7 +23,12 @@ from .operators.linop import (FunctionOperator, MatrixOperator,
 from .ops.formats import CSR, ELL, Diagonal, csr_from_scipy, ell_from_scipy
 from .precond.cp import CPPrecond, CPState, make_preconditioner
 from .solvers.common import KrylovResult
+from .solvers.cpcg import cpcg
+from .solvers.cpcglanczos import cpcglanczos
+from .solvers.cpdqgmres import cpdqgmres
+from .solvers.cpgmres import cpgmres
 from .solvers.cpminres import cpminres
+from .solvers.cpsymmlq import cpsymmlq
 
 __all__ = [
     "CSR", "ELL", "Diagonal", "csr_from_scipy", "ell_from_scipy",
@@ -32,16 +37,7 @@ __all__ = [
     "CPPrecond", "CPState", "make_preconditioner",
     "KrylovResult", "SolveOutput", "solve",
     "MixedSolveOutput", "solve_mixed",
-    "cpminres",
+    "cpminres", "cpcg", "cpcglanczos", "cpsymmlq", "cpgmres", "cpdqgmres",
 ]
 
 __version__ = "0.1.0"
-
-# Optional kernels are appended to __all__ as they land.
-for _name in ("cpcg", "cpcglanczos", "cpsymmlq", "cpgmres", "cpdqgmres"):
-    try:
-        _mod = __import__(f"cpkrylov_tpu.solvers.{_name}", fromlist=[_name])
-        globals()[_name] = getattr(_mod, _name)
-        __all__.append(_name)
-    except (ImportError, AttributeError):
-        pass

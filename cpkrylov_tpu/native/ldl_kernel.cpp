@@ -1,7 +1,7 @@
 // Sparse LDL^T factorization for symmetric indefinite matrices with
 // 1x1 and adjacent 2x2 block pivots.
 //
-// TPU-native replacement for the factorization the MATLAB reference obtains
+// Native replacement for the factorization the MATLAB reference obtains
 // from the built-in `ldl` (MA57-class) call in /root/reference/ops/opLDL2.m:82.
 // The constraint preconditioner K_P = [G B'; B -C] is symmetric quasi-definite
 // when G is SPD (Vanderbei) — then every pivot is a stable 1x1.  When G is

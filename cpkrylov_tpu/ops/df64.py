@@ -1,18 +1,19 @@
 """Double-f32 ("df64") arithmetic for device-resident f64-accurate residuals.
 
-TPUs have no native f64; the mixed-precision outer refinement
-(mixed.solve_mixed) therefore evaluated its true residual r = b - K x on
-the host, paying two ~5 MB host<->device transfers per outer pass — the
-dominant wall-clock term of a production solve over a remote backend.
+The mixed-precision outer refinement (mixed.solve_mixed) evaluates its true
+residual r = b - K x in f64 on the host by default, paying two O(N)
+host<->device transfers per outer pass.
 
-This module keeps the refinement on device: vectors (x, r, b) and the
+This module keeps the refinement on device in f32 arithmetic: vectors (x, r, b) and the
 operand diagonals of K are stored as UNEVALUATED PAIRS (hi, lo) of f32
 arrays with |lo| <= ulp(hi)/2, giving ~2^-48 relative accuracy — 6 extra
 digits beyond f32, ample for the reference stopping contract
 ``||r|| <= atol + rtol ||b||`` at rtol = 1e-6..1e-10 (reg_cpkrylov.m:163,
 cpminres.m:164).  All building blocks are the classical error-free
-transforms (Dekker 1971, Knuth TAOCP v2) — branch-free, XLA-safe (no
-reliance on FMA presence or absence), VPU-native.
+transforms (Dekker 1971, Knuth TAOCP v2) — branch-free elementwise f32
+code.  They are exact only if the compiler neither contracts a product and
+a sum into one fused multiply-add nor reassociates; the tests check
+``two_sum``/``two_prod`` bit-exactly against f64 on the backend they run on.
 
 Used by mixed.solve_mixed's device-resident path: the f64-accurate DIA
 matvec of the saddle operator K = [A B'; B -C], df64 axpy accumulation of
@@ -102,7 +103,7 @@ def df_dot_hi(x: DF, y: DF):
     """Dot product accurate enough for norm-based stopping control: the hi
     parts carry the value to f32 relative accuracy, which is ~1e-7 —
     orders beyond what a tolerance comparison needs."""
-    return jnp.dot(x[0], y[0])
+    return jnp.dot(x[0], y[0], precision=jax.lax.Precision.HIGHEST)
 
 
 def df_norm_hi(x: DF):
@@ -167,13 +168,7 @@ def df_dia_matvec(mat: DFDia, x: DF) -> DF:
     """y = mat @ x in df64: error-free products of the hi terms plus the
     first-order cross terms (hi*lo + lo*hi); the lo*lo term (~2^-96) is
     dropped.  Accumulation via two_sum chains keeps the result a valid
-    (hi, lo) pair.  On TPU the whole chain runs as one Pallas pass
-    (ops/pallas_dia.pallas_df_dia_matvec)."""
-    if jax.default_backend() == "tpu":
-        from .pallas_dia import pallas_df_dia_matvec
-
-        if len({o // 8192 for o in mat.offsets}) <= 4:
-            return pallas_df_dia_matvec(mat, x[0], x[1])
+    (hi, lo) pair."""
     nrows, ncols = mat.shape
     neg, pos = _pads(mat.offsets, nrows, ncols)
     xh = jnp.pad(x[0], (neg, pos))

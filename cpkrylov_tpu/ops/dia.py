@@ -1,4 +1,4 @@
-"""DIA — diagonal sparse storage, the TPU-native format for banded matrices.
+"""DIA — diagonal sparse storage for banded matrices.
 
 RCM-ordered KKT systems concentrate their nonzeros on a handful of
 (sub)diagonals.  Stored by diagonal, SpMV becomes
@@ -6,7 +6,8 @@ RCM-ordered KKT systems concentrate their nonzeros on a handful of
     y = sum_k  data[k] * shift(x, offset_k)
 
 — a static-shape chain of elementwise multiply-adds over contiguous slices
-that XLA fuses into a single VPU pass with NO gathers, no scatter, and no
+that XLA fuses into a single elementwise pass with NO gathers, no scatter,
+and no
 custom kernel.  This is the fastest possible layout for the hot-loop SpMVs
 of the reference (every ``A*v`` / ``C*q`` / K_P multiply,
 /root/reference/kernels/cpminres.m:187-188, ops/opLDL2.m:170-175) whenever
@@ -151,8 +152,8 @@ def pack_sym_dia(mat, *, dtype=np.float32, perm: np.ndarray | None = None,
     Natural-order DIA needs NO permutation (saddle-point K_P = [G B'; B -C]
     with banded blocks is diagonal-sparse in natural order: the B/B' blocks
     sit on offsets ~±n — still just a handful of distinct diagonals), so it
-    is tried first; the per-SpMV permutation gathers of the RCM-wrapped
-    fallback cost ~7 ns/element on TPU.  Returns a plain ``DIA``, a
+    is tried first; the RCM-wrapped fallback pays two permutation gathers
+    per SpMV.  Returns a plain ``DIA``, a
     ``SymPermuted``-wrapped DIA, or None (no usable diagonal structure
     either way — caller falls back to PGELL/CSR).
     """
@@ -222,17 +223,14 @@ def dia_spill_matvec(mat: DIASpill, x: jax.Array) -> jax.Array:
 
 
 def pack_dia_spill(mat, dtype=np.float32, max_bytes_ratio: float = 1.5,
-                   max_spill_frac: float = 0.6,
-                   stream_gbps: float = 370.0, gather_ns: float = 7.5):
+                   max_spill_frac: float = 0.6):
     """Pack with the densest diagonals in DIA and the rest in a CSR spill.
 
-    Greedy by diagonal occupancy under a *time* model: a diagonal pays for
-    itself when the gather time its entries would cost in CSR
-    (``count * gather_ns``, ~7.5 ns/element measured on v5e) exceeds the
-    streaming cost of one padded diagonal pass (``~2 * n * itemsize /
-    stream_gbps``) — break-even around 0.3% occupancy.  The bytes gate
-    bounds the memory blow-up; the result must also model at least 20%
-    faster than pure-CSR to be worth the layout switch.
+    Greedy by diagonal occupancy under a *bytes* model: a diagonal earns a
+    padded pass when the bytes its entries would cost in CSR (value +
+    column index + row id each) exceed the ``n * itemsize`` bytes of its
+    padded storage.  ``max_bytes_ratio`` bounds the memory blow-up against
+    CSR, and the result must move fewer bytes than pure CSR.
     """
     from .formats import csr_from_scipy
 
@@ -246,14 +244,14 @@ def pack_dia_spill(mat, dtype=np.float32, max_bytes_ratio: float = 1.5,
     off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
     uniq, counts = np.unique(off, return_counts=True)
     order = np.argsort(-counts)
-    diag_pass_ns = 2.0 * n * itemsize0 / stream_gbps   # bytes / (GB/s) = ns
+    csr_entry = itemsize0 + 8                          # value + 2 int32
     byte_budget = (max_bytes_ratio if max_bytes_ratio > 0 else 1.5) \
         * csr.nnz * 12.0
     keep_mask_diag = np.zeros(uniq.size, dtype=bool)
     kept_nnz = 0
     kept_bytes = 0.0
     for k in order:
-        if counts[k] * gather_ns <= diag_pass_ns:      # not worth a pass
+        if counts[k] * csr_entry <= n * itemsize0:     # not worth a pass
             break
         if kept_bytes + n * itemsize0 > byte_budget:
             break
@@ -265,10 +263,8 @@ def pack_dia_spill(mat, dtype=np.float32, max_bytes_ratio: float = 1.5,
     spill_nnz = csr.nnz - kept_nnz
     if spill_nnz > max_spill_frac * csr.nnz:
         return None
-    modeled_ns = (keep_mask_diag.sum() * diag_pass_ns
-                  + spill_nnz * gather_ns)
-    if modeled_ns > 0.8 * csr.nnz * gather_ns:         # CSR nearly as good
-        return None
+    if kept_bytes + spill_nnz * csr_entry >= csr.nnz * csr_entry:
+        return None                                    # CSR moves no more
     diag_idx = np.searchsorted(uniq, off)
     in_dia = keep_mask_diag[diag_idx]
     kept_offsets = uniq[keep_mask_diag]

@@ -1,22 +1,21 @@
 """Sparse matrix containers as JAX pytrees.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 All containers use *static* shapes (padded where necessary) so that every
 consumer can be traced once by XLA.  Two device layouts are provided:
 
 * ``CSR`` — coordinate-sorted CSR with an explicit ``row_ids`` array so a
   matvec is a gather + multiply + ``segment_sum`` (well supported by XLA on
-  both CPU and TPU).
+  CPU and GPU).
 * ``ELL`` — ELLPACK layout ``data[rows, K]`` / ``cols[rows, K]`` with rows
-  padded to a common nnz-per-row ``K``.  SpMV vectorises perfectly on the
-  8x128 VPU lanes: ``(data * x[cols]).sum(axis=1)``.  This is the layout the
-  Pallas kernels consume.
+  padded to a common nnz-per-row ``K``.  SpMV vectorises as
+  ``(data * x[cols]).sum(axis=1)``.
 
 The reference framework (MATLAB cpkrylov, see /root/reference) relies on
 MATLAB's built-in sparse matrices for all of ``A*v``, ``C*q``, ``B'*y``
 (e.g. kernels/cpminres.m:187-188, reg_cpkrylov.m:157); these containers and
-the matvecs in ``ops/spmv.py`` are the TPU-native replacement.
+the matvecs in ``ops/spmv.py`` are the device replacement.
 """
 from __future__ import annotations
 
@@ -93,9 +92,8 @@ class ELL:
 class BSR:
     """Block sparse row: dense (bs, bs) blocks at sparse block positions.
 
-    The MXU-native layout — each stored block is a small dense matrix, so
-    SpMV/SpMM contract on the systolic array via a batched einsum instead of
-    scalar gathers.  Zero-padding blocks (``data == 0`` pointing at block
+    Each stored block is a small dense matrix, so SpMV/SpMM contract via a
+    batched einsum instead of scalar gathers.  Zero-padding blocks (``data == 0`` pointing at block
     row/col 0) contribute nothing.
     """
 

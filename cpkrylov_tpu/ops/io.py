@@ -1,8 +1,8 @@
 """Host-side matrix IO: MATLAB .mat and MatrixMarket loaders.
 
 The reference ships .mat fixtures and loads them with MATLAB ``load``
-(examples/cpk_exprog1.m:45-46); this module provides the equivalents for
-the TPU framework, returning scipy sparse matrices ready for the block
+(examples/cpk_exprog1.m:45-46); this module provides the equivalents,
+returning scipy sparse matrices ready for the block
 converters in ``formats.py`` / ``pgell.py``.
 """
 from __future__ import annotations

@@ -1,22 +1,20 @@
-"""PGELL — paged-gather ELL: a TPU-native sparse matrix format (v2).
+"""PGELL — paged-gather ELL, a sparse layout for locally banded matrices.
 
-TPUs have no hardware gather; the one fast data-dependent primitive Mosaic
-exposes is ``tpu.dynamic_gather`` along lanes (a per-sublane-row 128-entry
-LUT, measured ~224 G elems/s on v5e).  PGELL organizes SpMV so that every
-other data movement is dense and matmul-free:
+PGELL organizes SpMV so that the only data-dependent access is a gather
+within a page of 128 entries of x; every other data movement is dense:
 
   * x is viewed as pages of 128 lanes: ``x2d (P, 128)``; each row tile reads
-    a contiguous window of Wp pages (DMA'd to VMEM once per tile).
+    a contiguous window of Wp pages.
   * slot-rows are page-major with a *uniform* depth D (slot s serves page
     ``s // D``), so replicating each page's 128 lanes across its D slot-rows
     is a free broadcast + reshape — no page-selection matmul.
   * each nonzero (r, c, v) sits at slot lane ``r % 128`` (encoding its
     destination row within its 128-row bucket) and stores ``c % 128`` as its
-    LUT index; the per-entry x element is picked with the lane gather.
+    LUT index; the per-entry x element is picked with an in-page gather.
   * accumulation into output buckets: for banded matrices each bucket's
     entries live in a short *contiguous* range of page-major slots
     (host-precomputed), so ``y[bucket]`` is a masked sum over that range —
-    a handful of VPU passes, no matmul.
+    a handful of vector passes, no matmul.
 
 Metadata (lane LUT index, bucket id) is int8, keeping HBM traffic near
 4 B + 2 B per slot entry.  The format is profitable for locally-banded
@@ -111,10 +109,7 @@ def pack_pgell(mat, tile_rows: int = 2048, min_wp: int = 1,
     ntiles = max(1, -(-nrows // tile_rows))
     nb = tile_rows // LANE
 
-    # Per-tile page spans -> global Wp and window starts.  Window starts and
-    # Wp are 8-aligned: the kernel's dynamic HBM->VMEM copy of the (Wp, 128)
-    # window faults on real TPUs when the slice is not sublane-tile aligned
-    # (measured on v5e: wp=17 kernel-faults, wp=24 with aligned starts works).
+    # Per-tile page spans -> global Wp and window starts (both 8-aligned).
     spans, p0_list = [], []
     for t in range(ntiles):
         r0, r1 = t * tile_rows, min((t + 1) * tile_rows, nrows)

@@ -1,9 +1,9 @@
-"""Sparse matrix-vector products (XLA reference implementations).
+"""Sparse matrix-vector products, written in plain JAX for XLA.
 
-These are the jnp fallbacks used on CPU and inside tests; the hot TPU path is
-the Pallas kernel in ``ops/pallas_spmv.py``.  They replace the implicit native
-SpMV of the MATLAB reference (every ``A*v`` / ``C*q`` / ``B'*y``, e.g.
-/root/reference/kernels/cpminres.m:187-188).
+They replace the implicit native SpMV of the MATLAB reference (every
+``A*v`` / ``C*q`` / ``B'*y``, e.g. /root/reference/kernels/cpminres.m:187-188).
+Dense contractions pass ``precision=HIGHEST`` so that float32 products do
+not run in TF32 on GPUs.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from .dia import (DIA, DIASpill, dia_matmat, dia_matvec, dia_rmatvec,
                   dia_spill_matvec)
 from .formats import BSR, CSR, ELL, Diagonal
 from .pgell import PGELL, SymPermuted, pgell_matvec_reference
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def csr_matvec(mat: CSR, x: jax.Array) -> jax.Array:
@@ -42,27 +44,17 @@ def diag_matvec(mat: Diagonal, x: jax.Array) -> jax.Array:
 
 
 def bsr_matvec(mat: BSR, x: jax.Array) -> jax.Array:
-    """y = mat @ x: batched dense (bs, bs) @ (bs,) per stored block (MXU),
+    """y = mat @ x: batched dense (bs, bs) @ (bs,) per stored block,
     accumulated by block row.  ``x`` is zero-padded to the block grid."""
     bs = mat.blocksize
     ncb = mat.shape[1] // bs
     xb = jnp.pad(x, (0, mat.shape[1] - x.shape[0])).reshape(ncb, bs)
     gathered = jnp.take(xb, mat.block_cols, axis=0, mode="clip")
-    prod = jnp.einsum("nij,nj->ni", mat.data, gathered)
+    prod = jnp.einsum("nij,nj->ni", mat.data, gathered, precision=_HI)
     yb = jax.ops.segment_sum(prod, mat.block_rows,
                              num_segments=mat.shape[0] // bs,
                              indices_are_sorted=True)
     return yb.reshape(-1)
-
-
-def pgell_dispatch(mat: PGELL, x: jax.Array) -> jax.Array:
-    """PGELL matvec: the Pallas kernel on TPU, the identical-math jnp
-    reference elsewhere (the backend choice is static at trace time)."""
-    if jax.default_backend() == "tpu":
-        from .pallas_spmv import pgell_matvec
-
-        return pgell_matvec(mat, x)
-    return pgell_matvec_reference(mat, x)
 
 
 def sym_permuted_matvec(mat: SymPermuted, x: jax.Array) -> jax.Array:
@@ -86,15 +78,9 @@ def matvec(mat, x: jax.Array) -> jax.Array:
     if isinstance(mat, SymPermuted):
         return sym_permuted_matvec(mat, x)
     if isinstance(mat, PGELL):
-        return pgell_dispatch(mat, x)
-    if hasattr(mat, "nrows_pad"):        # PallasDIA (local import: no cycle)
-        from .pallas_dia import pallas_dia_matvec
-
-        if jax.default_backend() == "tpu":
-            return pallas_dia_matvec(mat, x)
-        return dia_matvec(mat.to_dia(), x)
+        return pgell_matvec_reference(mat, x)
     if isinstance(mat, jax.Array) or hasattr(mat, "ndim"):
-        return jnp.asarray(mat) @ x
+        return jnp.matmul(jnp.asarray(mat), x, precision=_HI)
     raise TypeError(f"unsupported matrix type {type(mat)}")
 
 
@@ -112,19 +98,19 @@ def csr_matmat(mat: CSR, X: jax.Array) -> jax.Array:
 def ell_matmat(mat: ELL, X: jax.Array) -> jax.Array:
     """Y = mat @ X; gathers (rows, K, r) operand tiles, contracts over K."""
     gathered = jnp.take(X, mat.cols, axis=0, mode="clip")  # (rows, K, r)
-    Y = jnp.einsum("rk,rkc->rc", mat.data, gathered)
+    Y = jnp.einsum("rk,rkc->rc", mat.data, gathered, precision=_HI)
     return Y[: mat.shape[0]]
 
 
 def bsr_matmat(mat: BSR, X: jax.Array) -> jax.Array:
-    """Y = mat @ X: (bs, bs) @ (bs, r) dense contractions on the MXU."""
+    """Y = mat @ X: (bs, bs) @ (bs, r) dense block contractions."""
     bs = mat.blocksize
     r = X.shape[1]
     ncb = mat.shape[1] // bs
     Xb = jnp.pad(X, ((0, mat.shape[1] - X.shape[0]), (0, 0)))
     Xb = Xb.reshape(ncb, bs, r)
     gathered = jnp.take(Xb, mat.block_cols, axis=0, mode="clip")
-    prod = jnp.einsum("nij,njr->nir", mat.data, gathered)
+    prod = jnp.einsum("nij,njr->nir", mat.data, gathered, precision=_HI)
     Yb = jax.ops.segment_sum(prod, mat.block_rows,
                              num_segments=mat.shape[0] // bs,
                              indices_are_sorted=True)
@@ -148,8 +134,6 @@ def matmat(mat, X: jax.Array) -> jax.Array:
     if isinstance(mat, SymPermuted):
         return jnp.take(matmat(mat.inner, jnp.take(X, mat.perm, axis=0)),
                         mat.iperm, axis=0)
-    if hasattr(mat, "nrows_pad"):        # PallasDIA
-        return dia_matmat(mat.to_dia(), X)
     if isinstance(mat, jax.Array) or hasattr(mat, "ndim"):
-        return jnp.asarray(mat) @ X
+        return jnp.matmul(jnp.asarray(mat), X, precision=_HI)
     raise TypeError(f"unsupported matrix type {type(mat)}")

@@ -1,15 +1,16 @@
 """Multi-host bootstrap: ``jax.distributed`` initialization + mesh helpers.
 
-The reference has no distributed backend (SURVEY.md §2.4); the TPU-native
-equivalent is JAX's built-in runtime — ``jax.distributed.initialize`` wires
-the hosts, XLA collectives ride ICI within a slice and DCN across slices.
-No NCCL/MPI analogue is needed beyond what XLA provides.
+The reference has no distributed backend (SURVEY.md §2.4); the equivalent
+here is JAX's built-in runtime — ``jax.distributed.initialize`` wires the
+processes, and XLA hands the collectives to NCCL, which runs them over
+NVLink between the GPUs of one host.  Every GPU reaches every other at the
+same rate, so the mesh is a plain 1-D axis shaped by the row partition.
 
-Typical multi-host entry::
+Typical multi-process entry::
 
     from cpkrylov_tpu.parallel import bootstrap
-    bootstrap.initialize()                 # env-driven (TPU pods: zero-arg)
-    mesh = bootstrap.make_mesh()           # 1-D "rows" mesh over all chips
+    bootstrap.initialize("localhost:12355", num_processes=2, process_id=0)
+    mesh = bootstrap.make_mesh()           # 1-D "rows" mesh over all GPUs
 """
 from __future__ import annotations
 
@@ -23,9 +24,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    On Cloud TPU pods all arguments are discovered from the metadata /
-    environment, so a zero-arg call suffices on every host.  Explicit
-    arguments support CPU/GPU clusters and local multi-process tests.
+    Pass the coordinator address, the process count and this process's id:
+    nothing in a plain GPU or CPU host tells JAX of a cluster.
     """
     import jax
 

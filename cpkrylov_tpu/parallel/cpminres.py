@@ -17,10 +17,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from ..config import SolverOptions
 from ..precond.cp import CPPrecond, CPState
@@ -102,7 +99,7 @@ def dist_cpminres(mesh: Mesh, blocks: PartitionedBlocks, M: CPPrecond,
         return jax.lax.dynamic_slice(vpad, (d * m_loc,), (m_loc,))
 
     def pdot(a_loc, b_loc):
-        return jax.lax.psum(jnp.dot(a_loc, b_loc), AXIS)
+        return jax.lax.psum(jnp.dot(a_loc, b_loc, precision=jax.lax.Precision.HIGHEST), AXIS)
 
     def body_fn(a_data, a_cols, b_data, b_cols, bt_data, bt_cols, c_data,
                 c_cols, ha_data, ha_cols, hc_data, hc_cols, M_rep, b_loc):

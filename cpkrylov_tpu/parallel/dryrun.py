@@ -26,9 +26,8 @@ def _configure_backend(n_devices: int) -> None:
 
     The dryrun is *defined* as a virtual-CPU validation of the multi-chip
     sharding (module docstring), and its convergence/parity contract assumes
-    f64 numerics; round 3 shipped a regression where the driver's environment
-    left x64 off, so the whole run silently happened in f32 and the serial
-    convergence leg tripped the indefiniteness guard (MULTICHIP_r03.json).
+    f64 numerics; with x64 off the whole run would silently happen in f32 and
+    the serial convergence leg trips the indefiniteness guard.
     Self-configuring here — env vars before jax backend init, config updates
     after — makes the gate independent of the caller's environment.  The env
     writes only help when the backend is not yet initialized (the driver
@@ -128,7 +127,7 @@ def run_dryrun(n_devices: int) -> None:
     # The examples' canonical configuration (residual_update + nitref=1 +
     # force_itref, cpk_exprog1.m:87-92) through the Schur-sharded factor
     # with row-partitioned K_P blocks: GHN caches live sharded and no O(N)
-    # all-gather runs inside the loop (benchmarks/SHARDED_PRECOND_HLO.json).
+    # all-gather runs inside the loop (benchmarks/sharded_precond_evidence.py).
     from ..config import PrecondOptions
     from .schur import plan_schur_precond
 

@@ -4,7 +4,7 @@ refinement.
 The serial mixed path (mixed.solve_mixed) recovers f64 accuracy from f32
 device solves by Krylov-accelerated iterative refinement.  This module
 lifts the same scheme over the row-partitioned mesh (BASELINE.json
-configs[4]: the 10M-row TPU-f32 configuration must reach the reference
+configs[4]: the 10M-row f32 configuration must reach the reference
 stopping contract on a sharded mesh): each inner solve is a full
 ``dist_solve`` (halo-exchange SpMVs, psum-fused dots, distributed Schur
 preconditioner) in f32, and the outer loop accumulates the f64 solution

@@ -147,7 +147,8 @@ class SchurFactor:
         contrib = jnp.zeros(self.s, z.dtype).at[ads_c.reshape(-1)].add(
             (ads_d * u_d[:, None]).reshape(-1))
         g = z_S - jax.lax.psum(contrib, self.axis)
-        y_S = self.s_inv.astype(z.dtype) @ g
+        y_S = jnp.matmul(self.s_inv.astype(z.dtype), g,
+                         precision=jax.lax.Precision.HIGHEST)
         # y_d = u_d - A_dd^{-1} (A_dS y_S)
         rhs2 = (ads_d * jnp.take(y_S, ads_c, mode="clip")).sum(-1)
         y_d = u_d - lf.solve(rhs2)
@@ -185,7 +186,8 @@ class SchurFactor:
             contrib = jnp.zeros(self.s, zn_loc.dtype).at[
                 ads_c.reshape(-1)].add((ads_d * u_d[:, None]).reshape(-1))
             g = z_S - jax.lax.psum(contrib, self.axis)
-            y_S = self.s_inv.astype(zn_loc.dtype) @ g
+            y_S = jnp.matmul(self.s_inv.astype(zn_loc.dtype), g,
+                             precision=jax.lax.Precision.HIGHEST)
             rhs2 = (ads_d * jnp.take(y_S, ads_c, mode="clip")).sum(-1)
             y_d = u_d - lf.solve(rhs2)
         else:
@@ -342,6 +344,16 @@ def _plan_shard_exchange(gather_idx, scatter_idx, s_nat, n, m, ndev, N):
                 shard_nloc=int(n_loc), shard_mloc=int(m_loc))
 
 
+def _perm_bandwidth(ksp, perm: np.ndarray) -> int:
+    """Max |i - j| of the pattern under the given symmetric permutation."""
+    coo = ksp.tocoo()
+    ipos = np.empty(perm.shape[0], dtype=np.int64)
+    ipos[perm] = np.arange(perm.shape[0])
+    if coo.nnz == 0:
+        return 0
+    return int(np.abs(ipos[coo.row] - ipos[coo.col]).max())
+
+
 def plan_schur_precond(G, B, C, ndev: int, *,
                        options: PrecondOptions | None = None,
                        backend: str = "auto", panel: int = 64,
@@ -374,7 +386,6 @@ def plan_schur_precond(G, B, C, ndev: int, *,
     # BFS order wanders non-monotonically (measured: single chunks spanning
     # half the row range on the banded family) and only serves as the
     # fallback for systems the interleave leaves wide.
-    from ..precond.cp import _perm_bandwidth
     from ..precond.permute import interleave_candidates
 
     p = None

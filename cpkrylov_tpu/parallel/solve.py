@@ -27,17 +27,16 @@ inside the same region, so ``dist_solve`` is the distributed equivalent of
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 from ..config import PrecondOptions, SolverOptions
 from ..operators.linop import FunctionOperator
@@ -124,7 +123,9 @@ class ShardedPrecond:
 
     # -- sharded-full application (reference ordering, opLDL2.m:161-188) --
     def _pnorm2(self, vn, vm):
-        return jax.lax.psum(jnp.dot(vn, vn) + jnp.dot(vm, vm), AXIS)
+        hi = jax.lax.Precision.HIGHEST
+        return jax.lax.psum(jnp.dot(vn, vn, precision=hi)
+                            + jnp.dot(vm, vm, precision=hi), AXIS)
 
     def _apply_sharded_full(self, state, zn, zm):
         M = self.inner
@@ -302,6 +303,31 @@ def plan_dist(A, B, C, ndev: int, dtype=np.float64, halo: bool = True,
                      None if G is None else host_fingerprint(G)))
 
 
+def _host_staging():
+    """Create arrays on the host's CPU device while this context is open.
+
+    The per-device operand stacks are built whole before they are split
+    over the mesh; built on the default accelerator they would sit on its
+    first device in full.  Without a CPU backend (``JAX_PLATFORMS`` names
+    only the accelerator) arrays go to the default device."""
+    try:
+        return jax.default_device(jax.devices("cpu")[0])
+    except RuntimeError:
+        return contextlib.nullcontext()
+
+
+def _place(mesh: Mesh, tree, specs):
+    """``device_put`` each subtree of ``tree`` with the PartitionSpec that
+    ``specs`` (a tree prefix of ``tree``) gives it, over ``mesh``."""
+    return jax.tree_util.tree_map(
+        lambda spec, sub: jax.device_put(sub, NamedSharding(mesh, spec)),
+        specs, tree, is_leaf=lambda s: isinstance(s, P))
+
+
+# Operand stacks placed over a mesh, keyed by (plan identity, mesh), so
+# repeated solves on one plan transfer them once.
+_PLACED_CACHE: dict = {}
+
 # Compiled shard_map programs, keyed by (plan identity, mesh, kernel,
 # options, shift flag).  Without this every dist_solve call rebuilds the
 # closure and XLA recompiles the whole region (~100 s at production sizes
@@ -340,30 +366,30 @@ def dist_solve(mesh: Mesh, method: str, b, A, B, C, G, *,
         default = n + m if method in ("cpgmres", "cpdqgmres") else n
         opts = dataclasses.replace(opts, itmax=int(default))
 
-    if M is None:
-        # Prefer the distributed Schur factor: per-device factor memory and
-        # trisolve cost are O(N/ndev) instead of the replicated factor's
-        # O(N)-on-every-device (VERDICT r2 weak #5).  Exactness means
-        # iteration counts are unchanged.  Systems whose RCM profile stays
-        # too wide for chunked partitioning fall back to the replicated
-        # factor (build_dist_precond, shared with dist_solve_mixed).
-        from .mixed import build_dist_precond
+    with _host_staging():
+        if M is None:
+            # Prefer the distributed Schur factor: per-device factor memory
+            # and trisolve cost are O(N/ndev) instead of the replicated
+            # factor's O(N)-on-every-device.  Exactness means iteration
+            # counts are unchanged.  Systems whose RCM profile stays too
+            # wide for chunked partitioning fall back to the replicated
+            # factor (build_dist_precond, shared with dist_solve_mixed).
+            from .mixed import build_dist_precond
 
-        M = build_dist_precond(G, B, C, ndev, precond_opts=precond_opts,
-                               panel=panel, dtype=dtype)
-    # A Schur-sharded factor + row-partitioned G unlock the fully-sharded
-    # preconditioner application (GHN + itref on shards, VERDICT r4 4a).
-    shard_g = getattr(M.factor, "has_shard_plan", False)
-    plan = plan_dist(A, B, C, ndev, dtype=dtype, halo=halo,
-                     G=G if shard_g else None)
-    blocks = plan.blocks
-    n_loc, m_loc = blocks.n_loc, blocks.m_loc
-    b1_sh = shard_vector(b[:n].astype(dtype), ndev, n_loc)
-    b2_sh = shard_vector(b[n:].astype(dtype), ndev, m_loc)
+            M = build_dist_precond(G, B, C, ndev, precond_opts=precond_opts,
+                                   panel=panel, dtype=dtype)
+        # A Schur-sharded factor + row-partitioned G unlock the fully-
+        # sharded preconditioner application (GHN + itref on shards).
+        shard_g = getattr(M.factor, "has_shard_plan", False)
+        plan = plan_dist(A, B, C, ndev, dtype=dtype, halo=halo,
+                         G=G if shard_g else None)
+        blocks = plan.blocks
+        n_loc, m_loc = blocks.n_loc, blocks.m_loc
+        b1_sh = shard_vector(b[:n].astype(dtype), ndev, n_loc)
+        b2_sh = shard_vector(b[n:].astype(dtype), ndev, m_loc)
+        zeros = jnp.zeros((ndev, 1, 1), dtype)
+        izeros = jnp.zeros((ndev, 1, 1), jnp.int32)
     shift = bool(np.any(b[n:]))                    # reg_cpkrylov.m:154
-
-    zeros = jnp.zeros((ndev, 1, 1), dtype)
-    izeros = jnp.zeros((ndev, 1, 1), jnp.int32)
 
     def h_operand(name):
         hb = plan.halos[name]
@@ -440,12 +466,20 @@ def dist_solve(mesh: Mesh, method: str, b, A, B, C, G, *,
         qr_resid_history=P() if has_hists else None,
     )
 
+    # Each device holds only its own slice of the operand stacks.
+    pkey = (id(plan), mesh)
+    placed = _PLACED_CACHE.get(pkey)
+    if placed is None:
+        placed = _place(mesh, operands, spec_blocks)
+        weakref.finalize(plan, _PLACED_CACHE.pop, pkey, None)
+        _PLACED_CACHE[pkey] = placed
+    M = _place(mesh, M, spec_M)
+    b1_sh, b2_sh = _place(mesh, (b1_sh, b2_sh), (P(AXIS), P(AXIS)))
+
     # Reuse the compiled program across calls with the same plan/mesh/
     # kernel/options/precond structure: `body` is a fresh closure per call,
     # so without an explicit cache jax.jit retraces (and XLA recompiles)
     # every solve.
-    import weakref
-
     key = (id(plan), mesh, method, opts, shift,
            jax.tree_util.tree_structure((M, operands)))
     mapped = _MAPPED_CACHE.get(key)
@@ -465,7 +499,7 @@ def dist_solve(mesh: Mesh, method: str, b, A, B, C, G, *,
             pass
         else:
             _MAPPED_CACHE[key] = mapped
-    res, x1, x2 = mapped(*operands, M, b1_sh, b2_sh)
+    res, x1, x2 = mapped(*placed, M, b1_sh, b2_sh)
     # Trim shard padding on the gathered outputs.
     res = dataclasses.replace(res, x=res.x[:n], y=res.y[:m])
     return res, x1.reshape(-1)[:n], x2.reshape(-1)[:m]

@@ -1,15 +1,15 @@
 """df64-applied preconditioner factor for coarsely-factorable K_P.
 
 The reference compensates inexact MA57 factors with iterative refinement
-inside every preconditioner application (opLDL2.m:173-187).  On TPU the
-factor lives in f32, and at interior-point conditioning the group-etree
+inside every preconditioner application (opLDL2.m:173-187).  On the f32
+path the factor lives in f32, and at interior-point conditioning the group-etree
 LDL^T can carry enormous element growth — measured on cvxqp2_1000 at
 mu=1e-4: cond(K_P) = 5.5e7 but cond(L) ~ 9e16 and cond(D) ~ 4e16 (the
 growth cancels in the product).  STORING such a factor in f32 destroys it:
 the plain f32 apply's probe residual is O(1), f32 refinement against K_P
 is non-contractive (iteration matrix norm ~ cond(K_P)*eps_f32 >= O(1)),
-and every f32 Krylov solve stagnates (benchmarks/MM_SWEEP_M_F32.json,
-round 4).
+and every f32 Krylov solve stagnates (the f32 rows of
+benchmarks/bench_mm_sweep.py).
 
 The fix implemented here keeps the factor ENTRIES in df64 — unevaluated
 (hi, lo) f32 pairs, ~2^-48 relative (ops/df64.py) — and applies each
@@ -25,7 +25,7 @@ above: probe residual 8.1e-1 (plain f32) -> 2.1e-8 after ONE step,
 df64 exactly (elementwise products and 0/1 linear maps).  The result: a
 preconditioner application accurate to ~1e-8 relative even when
 cond(K_P) * eps_f32 >> 1, restoring f64-like inner iteration counts for
-the f32-on-TPU path (VERDICT r4 item 3).
+the f32 path.
 
 Built automatically by ``make_preconditioner`` when the build-time probe
 detects a coarse f32 factor (see cp.py); costs (1 + nref) trisolves plus
@@ -184,13 +184,6 @@ def build_df_factor_apply(factor, fac, N: int, nref: int = 2
     import scipy.sparse as sp
 
     from .cp import _block_dinv
-
-    if getattr(factor, "dinv_folded", False):
-        # a folded factor's tf2 solves D*L', not L' — the df64 residual
-        # matrices below would model the wrong system (make_preconditioner
-        # rebuilds an unfolded factor before wrapping)
-        raise ValueError("build_df_factor_apply needs an UNFOLDED "
-                         "FactorApply (dinv_folded=False)")
 
     L1 = (fac.L + sp.identity(N, format="csc")).tocsr()
     rev = np.arange(N - 1, -1, -1)

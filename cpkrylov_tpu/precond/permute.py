@@ -1,12 +1,9 @@
-"""Gather-free permutation application for the preconditioner hot path.
+"""Permutation application for the preconditioner hot path.
 
-TPUs execute data-dependent gathers at ~0.13 G elem/s (measured on v5e:
-``jnp.take`` with a permutation index is ~7 ns/element, ~3 orders of
-magnitude below the VPU streaming rate), so the two permutation
-applications inside every factor solve (``z[perm]`` in, scatter out —
+Every factor solve applies two permutations (``z[perm]`` in, scatter out —
 the P and P' of the reference's ``P L^-T D^-1 L^-1 P'`` composition,
-/root/reference/ops/opLDL2.m:86) dominate preconditioner cost at
-production sizes if implemented as gathers.
+/root/reference/ops/opLDL2.m:86).  A gather reads an index array besides
+the data; structured orderings avoid that metadata.
 
 This module provides ``PermuteOp`` implementations chosen at build time:
 
@@ -15,8 +12,7 @@ This module provides ``PermuteOp`` implementations chosen at build time:
   the n-part and m-part proportionally (c = n/m integer): applied with
   reshapes and one concatenate, i.e. at full HBM bandwidth with zero
   index metadata.  Used when the factorization was *built* on this
-  ordering (make_preconditioner chooses it for saddle systems whose
-  K_P stays banded under interleaving).
+  ordering (``build_factor_apply(..., base_order=...)``).
 * ``DiaPermute`` — permutations whose displacement set {perm[i] - i} is
   small (local pivot swaps / amalgamation splices composed on a base
   ordering): applied as masked shifted adds, the DIA trick on a 0/1
@@ -100,87 +96,6 @@ class InterleavePermute:
         return jnp.concatenate([g[:, : self.c].reshape(-1),
                                 z[self.m * (self.c + 1):],
                                 g[:, self.c]])
-
-
-@partial(_register, data_fields=("pmat",), meta_fields=("n", "m", "c", "L"))
-@dataclasses.dataclass(frozen=True)
-class MatmulInterleavePermute:
-    """InterleavePermute applied via a constant 0/1 matmul on the MXU.
-
-    The riffle's XLA reshape/concat form manipulates (m, c)/(m, c+1)-shaped
-    intermediates whose minor dims pad to 128 lanes — ~32x the logical HBM
-    traffic, 0.46/0.81 ms per apply at m = 250k (measured round 4; Mosaic
-    cannot express the sub-128-lane zip either).  But a zip IS a fixed
-    permutation of each 128-group block, i.e. multiplication by a constant
-    (c+1)*128-square 0/1 matrix: reshaping the head into (G, (c+1)*128)
-    rows (every shape 128-aligned) and multiplying by ``pmat`` runs the
-    whole relayout on the MXU at full rate, exactly (0/1 coefficients).
-    The x-tail stays a contiguous copy.
-    """
-
-    pmat: jax.Array   # ((c+1)L, (c+1)L) f32: [x-slab | y-slab] -> riffled
-    n: int
-    m: int
-    c: int
-    L: int = 128
-
-    @property
-    def perm(self) -> np.ndarray:
-        return InterleavePermute(n=self.n, m=self.m, c=self.c).perm
-
-    def _head(self, z, inverse: bool):
-        c, L, m = self.c, self.L, self.m
-        gl = (c + 1) * L
-        m_pad = -(-m // L) * L
-        G = m_pad // L
-        if inverse:
-            w = z[: m * (c + 1)]
-            wp = jnp.zeros(G * gl, z.dtype).at[: w.shape[0]].set(w)
-            out = jnp.matmul(wp.reshape(G, gl),
-                             self.pmat.astype(z.dtype).T,
-                             precision=jax.lax.Precision.HIGHEST)
-            out = out.reshape(-1)
-            xh = out.reshape(G, gl)[:, : c * L].reshape(-1)[: c * m]
-            yh = out.reshape(G, gl)[:, c * L:].reshape(-1)[: m]
-            return xh, yh
-        xh = z[: c * m]
-        yh = z[self.n: self.n + m]
-        xp = jnp.zeros(G * c * L, z.dtype).at[: xh.shape[0]].set(xh)
-        yp = jnp.zeros(G * L, z.dtype).at[: m].set(yh)
-        rows = jnp.concatenate([xp.reshape(G, c * L), yp.reshape(G, L)],
-                               axis=1)
-        head = jnp.matmul(rows, self.pmat.astype(z.dtype),
-                          precision=jax.lax.Precision.HIGHEST).reshape(-1)
-        return head[: m * (c + 1)]
-
-    def apply(self, z: jax.Array) -> jax.Array:       # z[perm]
-        head = self._head(z, inverse=False)
-        return jnp.concatenate([head, z[self.c * self.m: self.n]])
-
-    def apply_inv(self, z: jax.Array) -> jax.Array:   # out[perm] = z
-        xh, yh = self._head(z, inverse=True)
-        return jnp.concatenate([xh, z[self.m * (self.c + 1):], yh])
-
-
-def _zip_pmat(c: int, L: int = 128) -> np.ndarray:
-    """((c+1)L)^2 0/1 matrix: row-space [x_0..x_{cL-1} | y_0..y_{L-1}],
-    column-space the riffled order (c x's then one y, per group)."""
-    gl = (c + 1) * L
-    P = np.zeros((gl, gl), np.float32)
-    for t in range(L):
-        for s in range(c):
-            P[t * c + s, t * (c + 1) + s] = 1.0
-        P[c * L + t, t * (c + 1) + c] = 1.0
-    return P
-
-
-def matmul_interleave(base: InterleavePermute,
-                      L: int = 128) -> MatmulInterleavePermute:
-    import jax.numpy as _jnp
-
-    return MatmulInterleavePermute(
-        pmat=_jnp.asarray(_zip_pmat(base.c, L)),
-        n=base.n, m=base.m, c=base.c, L=L)
 
 
 @partial(_register, data_fields=("masks", "inv_masks"),

@@ -1,16 +1,22 @@
-"""Sparse triangular solves on TPU via blocked forward substitution.
+"""Sparse triangular solves on the device via blocked forward substitution.
 
 This replaces the sparse triangular solves hidden inside the reference's
 ``op.LDL`` operator composition (/root/reference/ops/opLDL2.m:86, applied at
 opLDL2.m:165-167).  Triangular solves are inherently sequential; the
-TPU-native formulation here blocks the factor into ``panel``-row panels,
-inverts each diagonal panel densely on the host once at setup, and then runs
+formulation here blocks the factor into ``panel``-row panels, inverts each
+diagonal panel densely on the host once at setup, and then runs
 
     x[blk] = inv_diag[blk] @ (b[blk] - L_off[blk, :] @ x)
 
-as a ``fori_loop`` of ``n/panel`` steps.  Each step is an ELL gather (VPU)
-plus a (panel, panel) dense matvec (MXU) — compiler-friendly static shapes,
-sequential depth n/panel instead of the nnz-chain depth of level scheduling.
+as a ``fori_loop`` of ``n/panel`` steps.  Each step is an ELL gather plus a
+(panel, panel) dense matvec — compiler-friendly static shapes, sequential
+depth n/panel instead of the nnz-chain depth of level scheduling.  Banded
+factors take the log-depth parallel-prefix forms (``ScanTriFactor``,
+``ReducedScanTriFactor``) instead.
+
+Every contraction passes ``precision=HIGHEST``: a float32 product may
+otherwise run in TF32 on GPUs (about three decimal digits), which would
+make the preconditioner far less exact than its f32 storage.
 
 An upper-triangular solve is the same kernel on the index-reversed matrix
 (J U J is lower triangular for the reversal J), so only one device routine
@@ -24,6 +30,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _register(cls, data_fields, meta_fields):
@@ -168,7 +176,7 @@ def block_tri_solve(tf: BlockTriFactor, b: jax.Array) -> jax.Array:
         contrib = (od.astype(b.dtype) * gathered).sum(axis=1)
         rhs = jax.lax.dynamic_slice_in_dim(b_pad, r0, panel) - contrib
         inv = jax.lax.dynamic_index_in_dim(tf.inv_diag, i, keepdims=False)
-        xb = inv.astype(b.dtype) @ rhs
+        xb = jnp.matmul(inv.astype(b.dtype), rhs, precision=_HI)
         return jax.lax.dynamic_update_slice_in_dim(x, xb, r0, axis=0)
 
     x = jax.lax.fori_loop(0, tf.nblocks, body, x0)
@@ -190,10 +198,9 @@ class ScanTriFactor:
 
     is a first-order linear recurrence over panels — a parallel prefix.
     ``lax.associative_scan`` evaluates it in log2(nblocks) levels of
-    batched (panel, panel) matmuls on the MXU, replacing the O(nblocks)
-    sequential ``fori_loop`` of ``block_tri_solve`` (the dominant cost of
-    preconditioner application at production sizes: ~4900 sequential steps
-    for a 1.25M-row system at panel=256).
+    batched (panel, panel) matmuls, replacing the O(nblocks) sequential
+    ``fori_loop`` of ``block_tri_solve`` (~4900 sequential steps for a
+    1.25M-row system at panel=256).
     """
 
     inv_diag: jax.Array  # (nblocks, panel, panel)
@@ -263,21 +270,24 @@ def build_scan_tri(T, panel: int = 128, dtype=None) -> ScanTriFactor | None:
                          n=int(n), panel=int(panel))
 
 
+def _affine_combine(a, bb):
+    """Compose two affine maps x -> M x + c (``a`` applied first)."""
+    ma, ca = a
+    mb, cb = bb
+    return (jnp.matmul(mb, ma, precision=_HI),
+            jnp.einsum("...ij,...j->...i", mb, ca, precision=_HI) + cb)
+
+
 def scan_tri_solve(tf: ScanTriFactor, b: jax.Array) -> jax.Array:
     """Solve T x = b via parallel prefix over the panel recurrence."""
     p = tf.panel
     n_pad = tf.nblocks * p
     b_pad = jnp.zeros(n_pad, b.dtype).at[: tf.n].set(b)
     b2 = b_pad.reshape(tf.nblocks, p)
-    c = jnp.einsum("bij,bj->bi", tf.inv_diag.astype(b.dtype), b2)
+    c = jnp.einsum("bij,bj->bi", tf.inv_diag.astype(b.dtype), b2,
+                   precision=_HI)
     m = tf.m_blocks.astype(b.dtype)
-
-    def combine(a, bb):
-        ma, ca = a
-        mb, cb = bb
-        return mb @ ma, jnp.einsum("...ij,...j->...i", mb, ca) + cb
-
-    _, x = jax.lax.associative_scan(combine, (m, c))
+    _, x = jax.lax.associative_scan(_affine_combine, (m, c))
     return x.reshape(-1)[: tf.n]
 
 
@@ -293,7 +303,7 @@ class ReducedScanTriFactor:
     scan state can be the r-vector s_i = tail(x_i) instead of the full
     panel:
 
-        c_i = inv_i b_i                       (batched (p, p) matvec, MXU)
+        c_i = inv_i b_i                       (batched (p, p) matvec)
         s_i = Mr_i s_{i-1} + tail(c_i),  Mr_i = -tail_rows(inv_i S_i)
         x_i = c_i - W_i s_{i-1},         W_i  = inv_i S_i   ((p, r) blocks)
 
@@ -327,29 +337,21 @@ def reduced_scan_tri_solve(tf: ReducedScanTriFactor, b: jax.Array):
     nb = tf.nblocks
     b_pad = jnp.zeros(nb * p, b.dtype).at[: tf.n].set(b)
     b2 = b_pad.reshape(nb, p)
-    c = jnp.einsum("bij,bj->bi", tf.inv_diag.astype(b.dtype), b2)
+    c = jnp.einsum("bij,bj->bi", tf.inv_diag.astype(b.dtype), b2,
+                   precision=_HI)
     w = tf.w_blocks.astype(b.dtype)
     mr = -w[:, p - r:, :]                       # (nb, r, r)
     cr = c[:, p - r:]                           # (nb, r)
-
-    def combine(a, bb):
-        ma, ca = a
-        mb, cb = bb
-        return mb @ ma, jnp.einsum("...ij,...j->...i", mb, ca) + cb
-
-    _, s = jax.lax.associative_scan(combine, (mr, cr))
+    _, s = jax.lax.associative_scan(_affine_combine, (mr, cr))
     s_prev = jnp.concatenate([jnp.zeros((1, r), b.dtype), s[:-1]], axis=0)
-    x = c - jnp.einsum("bij,bj->bi", w, s_prev)
+    x = c - jnp.einsum("bij,bj->bi", w, s_prev, precision=_HI)
     return x.reshape(-1)[: tf.n]
 
 
-def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
-                         dtype=None):
-    """Host-side packing for the reduced-state scan forms: returns numpy
-    ``(inv (nb, p, p), w (nb, p, r), n, panel, r)`` or None when the reach
-    exceeds ``panel``.  Shared by the XLA ``ReducedScanTriFactor`` and the
-    lane-major Pallas factor (pallas_tri.py) so the latter never round-trips
-    operands through the device."""
+def build_reduced_scan_tri(T, panel: int = 128, r: int | None = None,
+                           dtype=None) -> ReducedScanTriFactor | None:
+    """Prepare T for the reduced-state scan; None when the reach exceeds
+    ``panel`` (caller falls back)."""
     T, er, ec, ev = _coo_canonical(T)
     n = T.shape[0]
     dtype = dtype or T.dtype
@@ -357,10 +359,7 @@ def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
     if reach > panel:
         return None
     if r is None:
-        # Exact reach: state vectors/transition matrices live in the MAJOR
-        # dims of (r, r, K)-shaped ops, so there is no tile-alignment reason
-        # to round up — and the scan's per-level work is r x (padded-tile
-        # ops), so every extra state row costs a full vector op.
+        # Exact reach: every extra state row adds work to each scan level.
         r = max(1, reach)
     r = min(r, panel)
 
@@ -386,34 +385,15 @@ def pack_reduced_scan_np(T, panel: int = 128, r: int | None = None,
         prod = np.matmul(np.ascontiguousarray(inv64[1:, :, :reach]),
                          sub_c[1:])
         w[1:] = prod.astype(dtype)
-    return inv64.astype(dtype), w, int(n), int(panel), int(r)
-
-
-def build_reduced_scan_tri(T, panel: int = 128, r: int | None = None,
-                           dtype=None) -> ReducedScanTriFactor | None:
-    """Prepare T for the reduced-state scan; None when the reach exceeds
-    ``panel`` (caller falls back)."""
-    packed = pack_reduced_scan_np(T, panel=panel, r=r, dtype=dtype)
-    if packed is None:
-        return None
-    inv, w, n, panel, r = packed
     return ReducedScanTriFactor(
-        inv_diag=jnp.asarray(inv),
+        inv_diag=jnp.asarray(inv64.astype(dtype)),
         w_blocks=jnp.asarray(w),
-        n=n, panel=panel, r=r)
+        n=int(n), panel=int(panel), r=int(r))
 
 
 def tri_solve(tf, b: jax.Array) -> jax.Array:
     """Dispatch on the prepared factor kind (static under jit: the factor
     class is part of the pytree structure)."""
-    if hasattr(tf, "a2"):          # BidiagTriFactor (local import: no cycle)
-        from .pallas_bidiag import bidiag_tri_solve
-
-        return bidiag_tri_solve(tf, b)
-    if hasattr(tf, "inv_t"):       # PallasTriFactor (local import: no cycle)
-        from .pallas_tri import pallas_tri_solve
-
-        return pallas_tri_solve(tf, b)
     if isinstance(tf, ReducedScanTriFactor):
         return reduced_scan_tri_solve(tf, b)
     if isinstance(tf, ScanTriFactor):

@@ -159,7 +159,7 @@ class reduce_axis:
 
 def vdot(a, b):
     """dot(a, b), psum-reduced over the active shard axis (if any)."""
-    d = jnp.dot(a, b)
+    d = jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
     axis_name = _axis().get()
     if axis_name is not None:
         d = jax.lax.psum(d, axis_name)

@@ -6,7 +6,7 @@ modified Gram-Schmidt under the coupled inner product
 ``H(j,k) = dot(Vj,u) + dot(Qj,t)`` (cpgmres.m:214-218), SymGivens rotations,
 and the restart recomputing the true residual (cpgmres.m:167-171).
 
-TPU notes: bases are stored row-major ((l+1, n)) with static shapes; the
+Device notes: bases are stored row-major ((l+1, n)) with static shapes; the
 dynamic-k triangular solve at restart is a masked full-size
 ``solve_triangular``.  The reference's complex-value guards
 (cpgmres.m:174-176, 220-222, 244-246) become clamps to zero of the coupled
@@ -225,8 +225,10 @@ def cpgmres(b, A, C, M: CPPrecond, opts: SolverOptions | None = None,
             jnp.where(dead, 1.0, 0.0).astype(dtype))
         gmask = jnp.where(dead, 0.0, ic.g[:restart])
         z = jax.scipy.linalg.solve_triangular(Rsq, gmask, lower=False)
-        x = oc.x + z @ ic.V[:restart]
-        q_acc = z @ ic.Q[:restart]
+        x = oc.x + jnp.matmul(z, ic.V[:restart],
+                              precision=jax.lax.Precision.HIGHEST)
+        q_acc = jnp.matmul(z, ic.Q[:restart],
+                           precision=jax.lax.Precision.HIGHEST)
         y = oc.y - q_acc
 
         # Reseed for the next outer sweep (cpgmres.m:167-180).  The reseed

@@ -1,6 +1,6 @@
 """Example 1: symmetric 2x2-block CVXQP saddle-point system, CP-MINRES.
 
-TPU-native equivalent of the reference example program
+JAX equivalent of the reference example program
 /root/reference/examples/cpk_exprog1.m — solves the interior-point KKT
 system of the CUTEst QP ``cvxqp1-m`` (iteration 10; 5500x5500, n=3000,
 m=2500) with the constraint-preconditioned MINRES kernel, validates

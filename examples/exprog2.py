@@ -1,6 +1,6 @@
 """Example 2: nonsymmetric 3x3-block permuted CVXQP system, CP-GMRES.
 
-TPU-native equivalent of the reference example program
+JAX equivalent of the reference example program
 /root/reference/examples/cpk_exprog2.m — solves the nonsymmetric permuted
 interior-point KKT system of ``cvxqp2-s`` (725x725, n=500, m=225) with the
 restarted constraint-preconditioned GMRES kernel (restart=100), validates

@@ -91,32 +91,3 @@ def test_device_resident_mixed_matches_host():
     rel = (np.linalg.norm(dev.x - host.x)
            / max(np.linalg.norm(host.x), 1e-300))
     assert rel < 1e-8, rel
-
-
-def test_pallas_df_dia_matvec_rectangular():
-    """df64 Pallas DIA kernel on rectangular blocks (B, B') in interpret
-    mode matches the XLA chain to df64 accuracy."""
-    import scipy.sparse as sp
-
-    from cpkrylov_tpu.ops.pallas_dia import pallas_df_dia_matvec
-
-    rng = np.random.default_rng(8)
-    for (nr, nc) in ((400, 1600), (1600, 400)):
-        k = min(nr, nc)
-        rows = np.concatenate([np.arange(k), np.arange(k - 1)])
-        if nc >= nr:
-            cols = np.concatenate([np.arange(k), np.arange(1, k)])
-        else:
-            cols = np.concatenate([np.arange(k), np.arange(k - 1)])
-            rows = np.concatenate([np.arange(k), np.arange(1, k)])
-        vals = np.concatenate([np.ones(k), 0.3 * np.ones(k - 1)])
-        Bm = sp.csr_matrix((vals, (rows, cols)), shape=(nr, nc))
-        dfb = df64.pack_df_dia(Bm)
-        x = rng.standard_normal(nc)
-        xh, xl = df64.df_from_f64(x)
-        yh, yl = pallas_df_dia_matvec(dfb, jnp.asarray(xh), jnp.asarray(xl),
-                                      chunk=256, interpret=True)
-        y = df64.df_to_f64(np.asarray(yh), np.asarray(yl))
-        exact = Bm @ x
-        assert (np.linalg.norm(y - exact)
-                / max(np.linalg.norm(exact), 1e-300)) < 1e-12

@@ -1,9 +1,9 @@
 """Mixed-precision solves (f32 inner Krylov + f64 outer refinement).
 
-The reference is f64-MATLAB-only; ``solve_mixed`` is the TPU-native
-capability that recovers f64-class accuracy from f32 device work
-(cpkrylov_tpu/mixed.py).  On CPU these tests exercise exactly the code
-path the TPU runs (explicit dtype=np.float32 inner solves).
+The reference is f64-MATLAB-only; ``solve_mixed`` is the capability that
+recovers f64-class accuracy from f32 device work (cpkrylov_tpu/mixed.py).
+On CPU these tests exercise the same code path a GPU runs (explicit
+dtype=np.float32 inner solves).
 """
 import numpy as np
 import pytest

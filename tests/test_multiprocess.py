@@ -1,8 +1,8 @@
 """Multi-process distributed execution (SURVEY.md §2.4 comm backend).
 
 Spawns 2 OS processes that initialize the JAX distributed runtime over a
-local coordinator (``parallel.bootstrap.initialize`` — the multi-host entry
-real TPU pods use), build the same saddle-point system, and run the generic
+local coordinator (``parallel.bootstrap.initialize`` — the multi-process
+entry point), build the same saddle-point system, and run the generic
 ``dist_solve`` across the 2-process CPU mesh.  Asserts convergence and
 exact iteration parity with the serial kernel in each process — the psum-
 fused dots and the distributed preconditioner must be mathematically

@@ -4,7 +4,6 @@ import pytest
 import scipy.sparse as sp
 
 from cpkrylov_tpu.ops.pgell import pack_pgell, pgell_matvec_reference
-from cpkrylov_tpu.ops.pallas_spmv import pgell_matvec
 
 
 def _banded_random(rows, cols, k, band, seed=0):
@@ -51,19 +50,6 @@ def test_pgell_fixture_matrix(cvxqp1):
     y = np.asarray(pgell_matvec_reference(mat, x))
     np.testing.assert_allclose(y, Kp @ x, rtol=1e-9, atol=1e-9)
     assert mat.nnz_density > 0.02  # padding within reason for banded KKT
-
-
-@pytest.mark.parametrize("rows,k,band,tr", [
-    (256, 4, 16, 128),
-    (640, 8, 100, 256),
-])
-def test_pallas_kernel_interpret(rows, k, band, tr):
-    A = _banded_random(rows, rows, k, band, seed=9)
-    x = np.random.default_rng(2).standard_normal(rows).astype(np.float32)
-    mat = pack_pgell(A, tile_rows=tr, dtype=np.float32)
-    y = np.asarray(pgell_matvec(mat, x, interpret=True))
-    np.testing.assert_allclose(y, (A @ x.astype(np.float64)).astype(
-        np.float32), rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------

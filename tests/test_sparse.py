@@ -270,66 +270,3 @@ def test_diagonal_operator_sums_duplicate_entries():
     x = np.array([1.0, 1.0, 1.0])
     got = np.asarray(op.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(got, A.tocsr() @ x)
-
-
-def test_pallas_dia_wrapper_matches_xla():
-    """PallasDIA pack + interpret-mode kernel == XLA DIA matvec; dispatch
-    (matvec / rmatvec / matmat) works through the wrapper."""
-    import scipy.sparse as sp
-
-    from cpkrylov_tpu.ops import spmv
-    from cpkrylov_tpu.ops.dia import pack_dia
-    from cpkrylov_tpu.ops.pallas_dia import (pack_pallas_dia,
-                                             pallas_dia_matvec)
-
-    rng_ = np.random.default_rng(5)
-    n = 2048
-    A = sp.diags([rng_.standard_normal(n) for _ in range(5)],
-                 [-2, -1, 0, 1, 2], shape=(n, n), format="csr")
-    d = pack_dia(A, dtype=np.float32, max_bytes_ratio=0)
-    pd = pack_pallas_dia(d, chunk=256)
-    x = jnp.asarray(rng_.standard_normal(n), jnp.float32)
-
-    y_ref = np.asarray(spmv.dia_matvec(d, x))
-    y_int = np.asarray(pallas_dia_matvec(pd, x, interpret=True))
-    np.testing.assert_allclose(y_int, y_ref, rtol=1e-6, atol=1e-6)
-    # dispatch falls back to the XLA form off-TPU
-    np.testing.assert_allclose(np.asarray(spmv.matvec(pd, x)), y_ref,
-                               rtol=1e-6, atol=1e-6)
-    yr = np.asarray(spmv.dia_rmatvec(d, x))
-    from cpkrylov_tpu.operators.linop import aslinearoperator
-    op = aslinearoperator(pd)
-    np.testing.assert_allclose(np.asarray(op.rmatvec(x)), yr,
-                               rtol=1e-6, atol=1e-6)
-    X = jnp.asarray(rng_.standard_normal((n, 3)), jnp.float32)
-    np.testing.assert_allclose(np.asarray(spmv.matmat(pd, X)),
-                               np.asarray(spmv.matmat(d, X)),
-                               rtol=1e-6, atol=1e-6)
-
-
-def test_pallas_dia_far_offset_groups():
-    """Grouped windows: offsets at ~±n (natural-order K_P's B blocks) are
-    bit-identical to the XLA chain in interpret mode."""
-    import scipy.sparse as sp
-
-    from cpkrylov_tpu.ops.dia import pack_dia
-    from cpkrylov_tpu.ops.pallas_dia import (pack_pallas_dia,
-                                             pallas_dia_matvec)
-    from cpkrylov_tpu.ops.spmv import dia_matvec
-
-    rng_ = np.random.default_rng(6)
-    n, m = 1500, 400
-    N = n + m
-    K = sp.lil_matrix((N, N))
-    K.setdiag(rng_.standard_normal(N))
-    for g in range(m):                      # B at offsets ~ +-n
-        K[n + g, g] = rng_.standard_normal()
-        K[g, n + g] = K[n + g, g]
-    d = pack_dia(K.tocsr(), dtype=np.float32, max_bytes_ratio=0)
-    pd = pack_pallas_dia(d, chunk=256)
-    assert pd is not None
-    assert len({o // 256 for o in d.offsets}) >= 3
-    x = jnp.asarray(rng_.standard_normal(N), jnp.float32)
-    y_ref = np.asarray(dia_matvec(d, x))
-    y = np.asarray(pallas_dia_matvec(pd, x, interpret=True))
-    np.testing.assert_allclose(y, y_ref, rtol=1e-6, atol=1e-6)
